@@ -1,4 +1,4 @@
-# REINA-TPU serving image (reference deployment: Dockerfile +
+# REINA serving image (reference deployment: Dockerfile +
 # docker-compose.yml — gunicorn/Flask/Redis replaced by the stdlib
 # HTTP server, threaded workers and the C++ shm result store).
 FROM python:3.12-slim

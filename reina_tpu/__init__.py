@@ -1,6 +1,6 @@
-"""REINA-TPU: a TPU-native agent-based epidemic simulation framework.
+"""REINA in JAX: an agent-based epidemic simulation framework.
 
-A ground-up JAX/XLA/Pallas rebuild of the REINA epidemic model
+A ground-up JAX/XLA rebuild of the REINA epidemic model
 (kausaltech/reina-model). The population is a struct-of-arrays agent
 state stepped by ``lax.scan`` over simulated days; per-agent contact
 sampling, infection transmission, disease progression, healthcare
@@ -8,7 +8,7 @@ capacity, testing/contact-tracing and vaccination are all expressed as
 vectorized XLA programs, with Monte-Carlo ensembles via ``vmap`` and
 multi-chip scaling via ``jax.sharding`` meshes.
 
-Layer map (mirrors the reference layer-for-layer, TPU-first):
+Layer map (mirrors the reference layer-for-layer):
 
   frontends   reina_tpu.runtime.graphql / reina_tpu.webui   (reference: corona.py, graphql_*)
   run orch.   reina_tpu.runtime                             (reference: simulation_thread.py)
@@ -22,23 +22,19 @@ __version__ = "0.1.0"
 
 
 def _enable_compilation_cache() -> None:
-    """Persist compiled XLA programs across processes (compiles of the
-    full day-step program take minutes on TPU; repeat runs of the same
-    shapes should be instant). Opt out with REINA_NO_JAX_CACHE=1.
+    """Persist compiled XLA programs across processes (a compile of the
+    full day-step program takes minutes; repeat runs of the same shapes
+    should not pay it again). Where the cache lives is decided by
+    utils.compile.cache_dir_for_process; a failure to enable it is
+    reported as a warning and the process runs uncached."""
+    from .utils.compile import enable_persistent_cache
 
-    Routed through utils.compile.enable_persistent_cache so CPU-forced
-    processes get the per-host-CPU subdirectory (foreign machines'
-    XLA:CPU AOT executables segfault at load)."""
-    import os
-
-    if os.environ.get("REINA_NO_JAX_CACHE"):
-        return
     try:
-        from .utils.compile import enable_persistent_cache
-
         enable_persistent_cache()
-    except Exception:
-        pass
+    except OSError as e:
+        import warnings
+
+        warnings.warn(f"persistent compilation cache not enabled: {e}")
 
 
 _enable_compilation_cache()

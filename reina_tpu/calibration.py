@@ -6,7 +6,7 @@ parameters (e.g. ``infectiousness_multiplier``) against observed case
 data (data/hosp_cases_hus.csv) was a manual exercise. Here a grid of
 parameter points runs as ONE vmapped XLA program — the model arrays
 gain a leading grid axis — and shards over the mesh's 'seed' dimension,
-so an N-chip pod evaluates N× the grid points of one chip at the same
+so N devices evaluate N× the grid points of one device at the same
 wall-clock.
 
 Scoring follows the reference's empirical-validation framing

@@ -118,8 +118,8 @@ def main(argv=None):
     p.add_argument("--scenario", default="default")
     p.add_argument("--runs", type=int, default=1000)
     p.add_argument("--batch-size", type=int, default=1,
-                   help="vmapped seed batch; 1 = sequential fast path "
-                        "(12x faster per seed on one chip)")
+                   help="vmapped seed batch; 1 = sequential runs through "
+                        "the single-run program")
     p.set_defaults(func=cmd_monte_carlo)
 
     p = sub.add_parser(

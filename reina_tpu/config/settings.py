@@ -23,7 +23,7 @@ _load_dotenv()
 CACHE_TYPE = os.environ.get(
     "REINA_CACHE", "redis" if os.environ.get("REDIS_URL") else "memory")
 REDIS_URL = os.environ.get("REDIS_URL")
-SECRET_KEY = os.environ.get("SECRET_KEY", "reina-tpu-dev-secret")
+SECRET_KEY = os.environ.get("SECRET_KEY", "reina-dev-secret")
 URL_PREFIX = os.environ.get("URL_PREFIX", "")
 BASE_URL = os.environ.get("BASE_URL", "http://localhost:5000")
 PORT = int(os.environ.get("PORT", "5000"))

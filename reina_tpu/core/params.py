@@ -174,9 +174,8 @@ def compile_population(age_counts: np.ndarray, band_of_age: np.ndarray,
     # Agents live at AGE-SORTED positions (padding at the tail): position
     # ranges double as the per-age index (age_start offsets address agents
     # directly), so uniform-in-age-band sampling and weighted infector
-    # attribution need no N-sized permutation gather — the single most
-    # expensive op class on TPU (~12 ms per gather at HUS scale, see
-    # tools/profile_ops_sync.py). The reference instead shuffles the id
+    # attribution need no N-sized permutation gather. The reference
+    # instead shuffles the id
     # space (main.pyx:1434-1436) purely so its serial capacity sweep is
     # age-unbiased; our rationing uses a random cyclic offset whose
     # marginal grant probability is position-uniform either way — the

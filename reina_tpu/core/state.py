@@ -66,11 +66,9 @@ class DayCarry(NamedTuple):
     bkt_dst: np.ndarray          # (N·CAPB,) int32 — source s's infectees
     #                              (row s = slice [s·CAPB, (s+1)·CAPB)) in
     #                              infection order; sentinel N beyond its
-    #                              fill count. Kept FLAT on device: the
-    #                              (N, CAPB) view would lane-pad each
-    #                              64-wide row to 128 (2× HBM) and every
-    #                              flat<->2-D reshape is a ~2 ms TPU
-    #                              relayout copy
+    #                              fill count. Kept FLAT on device,
+    #                              so no flat<->2-D reshape of the
+    #                              table is ever needed
     bkt_fill: np.ndarray         # (N,) int32 — edges ever appended to
     #                              s's bucket (uncapped; entries at
     #                              index >= CAPB were dropped and set
@@ -80,7 +78,7 @@ class DayCarry(NamedTuple):
     nc_ag: np.ndarray            # (N,) float32 — per-agent contact-count
     #                              expansion; a pure function of mobility,
     #                              recomputed only when an intervention
-    #                              changes it (~0.33 ms/day otherwise)
+    #                              changes it
     app_pos: np.ndarray          # (Kcap,) int32 — PENDING bucket-table
     #                              append positions from the previous
     #                              day, applied at the TOP of the next
@@ -88,8 +86,8 @@ class DayCarry(NamedTuple):
     #                              scatter is the carried table's first
     #                              and only pre-write use and XLA can
     #                              update it in place — the old
-    #                              read-then-write order forced a
-    #                              432 MB copy every day (deviation-free:
+    #                              read-then-write order forced a full
+    #                              table copy every day (deviation-free:
     #                              tracing only ever saw previous days'
     #                              appends). Sentinels NC + slot.
     app_val: np.ndarray          # (Kcap,) int32 — pending append values
@@ -99,10 +97,9 @@ class DayCarry(NamedTuple):
     app_n: np.ndarray            # int32 — count of live pending entries
     #                              (they are a prefix of app_pos: the
     #                              sort puts invalid slots last), gating
-    #                              the apply's geometric tail tiers —
-    #                              the full 64k stream costs ~24 ns per
-    #                              update against the 432 MB table while
-    #                              p75 of daily appends is ~1k
+    #                              the apply's geometric tail tiers (p75
+    #                              of daily appends is ~1k of the 64k
+    #                              stream)
 
 
 def blank_state(pop: PopulationArrays) -> AgentState:

@@ -1,6 +1,6 @@
 """The vectorized day step: one simulated day as a single XLA program.
 
-This is the TPU-native replacement for the reference's serial nogil
+This is the vectorized replacement for the reference's serial nogil
 sweep (main.pyx:1968-2009). Each phase is fully vectorized over the
 agent axis:
 
@@ -17,7 +17,8 @@ agent axis:
      clamped-counter prefix scans                 (main.pyx:395-439, 617-648)
   6. merge of new infections (imports + contacts) with infector
      attribution                                  (main.pyx:209-245, 1652-1699)
-  7. per-age-group statistics via one MXU matmul  (main.pyx:1701-1744, 1813-1857)
+  7. per-age-group statistics via one one-hot matmul
+                                                  (main.pyx:1701-1744, 1813-1857)
 
 Deviations from the serial reference are distributional-equivalence
 preserving and documented in docs/parity.md.
@@ -35,10 +36,8 @@ import numpy as np
 from . import constants as C
 from .state import AgentState, DayCarry
 from ..ops.clamped import clamped_counter_grants
-from ..ops.compact import compact_indices
-from ..ops.fusedmap import (fused_bihistogram, fused_concat_prefix,
-                            fused_fn_onehot_sum, fused_map,
-                            fused_onehot_sum)
+from ..ops.compact import compact_indices, concat_cumsum
+from ..ops.histogram import bihistogram, onehot_counts
 from ..ops.random import (binomial_fixed, gamma_fixed, searchsorted_compact,
                           searchsorted_fixed)
 
@@ -51,13 +50,10 @@ class EngineConfig:
     """Static engine knobs (hashable; passed as a static jit arg)."""
     infection_buffer: int = 1 << 16   # max new contact-infections per day
     infection_head: int = 1 << 9     # always-on buffer tier; the rest runs
-    #                                  under lax.cond on high-incidence days.
-    #                                  1024: the bench run's daily new-
+    #                                  under lax.cond on high-incidence days
+    #                                  (a 364-day HUS run's daily new-
     #                                  infection count has p50 = 75 and
-    #                                  p75 = 845 (364-day HUS, 2026-08-19);
-    #                                  bisect rounds and slot gathers cost
-    #                                  ~7 ns per QUERY in-loop, so a 4096
-    #                                  head overpaid ~1 ms/day on median days
+    #                                  p75 = 845)
     import_buffer: int = 512          # max imported infections per day
     import_attempts: int = 10         # susceptible-search retries (main.pyx:1657)
     max_infectees: int = 64           # per-source infectee-bucket capacity —
@@ -74,17 +70,6 @@ class EngineConfig:
     vacc_slots: int = 1               # vaccination campaign slots (≥ 1)
     nr_variants: int = 2
     nr_groups: int = 10               # output age groups (by_group rows)
-    stats_matmul: bool = True         # age-group stats on the MXU
-    pallas: bool = True               # allow single-launch Pallas kernels
-    shard_agents: int = 0             # >0: the run is mesh-sharded over
-    #                                   an 'agent' axis of this many
-    #                                   shards and the fused kernels run
-    #                                   as shard_map islands (ops/
-    #                                   fusedmap.shard_pallas); keys the
-    #                                   jit cache — the mesh itself rides
-    #                                   the trace-time context. 0 with
-    #                                   pallas=False is the plain-GSPMD
-    #                                   fallback (REINA_MESH_SHARD_PALLAS=0)
 
 
 class ModelArrays(NamedTuple):
@@ -110,9 +95,8 @@ class ModelArrays(NamedTuple):
     p_critical_c: jnp.ndarray    # (V, A)
     p_fatal_c: jnp.ndarray       # (V, A)
     p_doh: jnp.ndarray           # (V, A)
-    # per-agent static expansions (age/band are fixed per agent; XLA TPU
-    # gathers from small tables cost ~15 ms each inside this program, so
-    # every age-indexed lookup is pre-expanded at build time)
+    # per-agent static expansions (age/band are fixed per agent, so
+    # every static age-indexed lookup is pre-expanded at build time)
     band_ag: jnp.ndarray         # (N,) int32 — contact band per agent
     lam_log1p_ag: jnp.ndarray    # (V, N) f32 — log1p(−σ/(σmax·N_band))
     # exact dynamic per-age expansion: age = 8·hi + lo → two bf16 matmuls
@@ -257,64 +241,68 @@ def _binomial_split(key, totals, probs):
 
     Each draw is the EXACT marginal of the underlying multinomial; what
     is dropped is the (negative) cross-category covariance of the
-    counts — the earlier sequential conditional-binomial chain sampled
-    the joint exactly but serialized B sampler invocations under
-    ``lax.scan``, costing ~1.8 ms/day in launch floors at B=9. The
-    covariance affects no per-category mean or variance, only the joint
-    fluctuation of dart totals across bands (relative effect
+    counts — a sequential conditional-binomial chain would sample the
+    joint exactly but serialize B sampler invocations under
+    ``lax.scan``. The covariance affects no per-category mean or
+    variance, only the joint fluctuation of dart totals across bands (relative effect
     O(1/sqrt(K)) on the already-noisy total), and is documented in
     docs/parity.md (every consumer — dart splits and the
     exposures-by-place diagnostic — accepts the marginal split).
 
-    The ~54 elementwise sampler rounds run on the FLATTENED domain:
-    XLA packs the 5-D (A, V, T, S, B) group arrays in transposed
-    T(2,128) layouts that waste most of each vector register (day-200
-    trace, fusion.4037). Flattening is bit-exact: threefry bits are
-    generated in row-major element order, so the same key over the
-    same element count yields identical draws."""
+    The ~54 elementwise sampler rounds run on the FLATTENED domain
+    rather than the 5-D (A, V, T, S, B) group arrays. Flattening is
+    bit-exact: threefry bits are generated in row-major element order,
+    so the same key over the same element count yields identical
+    draws."""
     n_full = jnp.broadcast_to(totals[..., None].astype(F32), probs.shape)
     flat = binomial_fixed(key, n_full.reshape(-1),
                           probs.astype(F32).reshape(-1))
     return flat.reshape(probs.shape)
 
 
+def dart_success(q_hat, save, sigma_max):
+    """Candidate-dart success per (variant, source age, target band):
+    place-marginalized contact probability × (1 − mask save) × band
+    σmax. q_hat: (A, P, B); save: (V, A, P); sigma_max: (V, B).
+    HIGHEST precision: on GPUs a float32 contraction may otherwise run
+    in TF32, which keeps about three decimal digits."""
+    return jnp.einsum("apb,vap->vab", q_hat, 1.0 - save,
+                      precision=jax.lax.Precision.HIGHEST
+                      ) * sigma_max[:, None, :]
+
+
 def _group_counts(cfg: EngineConfig, arrays: ModelArrays, masks):
-    """Count agents per output age group for each mask: blockwise MXU
-    one-hot dots (ops/fusedmap.py) instead of 13 scatter reductions or
-    a materialized (K, N) bf16 stack. Exact: 0/1 values and f32
-    accumulation (counts < 2^24). Padding/excluded agents carry group
-    code G and land in the dropped last column."""
-    counts = fused_onehot_sum(list(masks), arrays.group_of_agent,
-                              cfg.nr_groups + 1,
-                              force=None if cfg.pallas else "xla")
+    """Count agents per output age group for each mask as one one-hot
+    dot (ops/histogram.py). Exact: 0/1 values and f32 accumulation
+    (counts < 2^24). Padding/excluded agents carry group code G and
+    land in the dropped last column."""
+    counts = onehot_counts(list(masks), arrays.group_of_agent,
+                           cfg.nr_groups + 1)
     return counts[:, :-1].astype(I32)
 
 
-def _tab(table2, idx, v_count):
-    """Select table2[0, idx] per agent via unrolled variant selects
-    (table2 is a (1, V) small array — works identically inside a
-    Pallas kernel block and in the XLA fallback)."""
-    acc = jnp.full(idx.shape, table2[0, 0], table2.dtype)
+def _tab(table, idx, v_count):
+    """Select table[idx] per agent from a (V,) table via unrolled
+    variant selects."""
+    acc = jnp.full(idx.shape, table[0], table.dtype)
     for v in range(1, v_count):
-        acc = jnp.where(idx == v, table2[0, v], acc)
+        acc = jnp.where(idx == v, table[v], acc)
     return acc
 
 
 def _phase4_prologue(st8, dl, doil, doi, sev8, var8, wdet, isinf, act,
-                     z, nc_ag, incl, ninf, iot2, asym2, infm2, day2):
+                     z, nc_ag, incl, ninf, iot2, asym, infm, day):
     """Exposure-phase per-agent prep: infectiousness-over-time lookup,
     exposer gating, lognormal contact counts (main.pyx:895-953,
     1306-1320) — plus the R_t bookkeeping element passes (newly-removed
     mask, included update, masked infection counts; main.pyx:1968-1972),
-    which read the same start-of-day state streams and ride the same
-    launch (their sums stay outside — ~4 fusions saved). Pure
-    elementwise (the iot lookup is an unrolled (variant, day) select
-    over the small table) — ONE fused pass."""
+    which read the same start-of-day state streams (their sums stay
+    outside). Pure elementwise: the iot lookup is an unrolled
+    (variant, day) select over the small (V, T) table."""
     st = st8.astype(I32)
     sev = sev8.astype(I32)
     var = var8.astype(I32)
     V, T = iot2.shape
-    day = day2[0, 0]
 
     removed = (st == C.RECOVERED) | (st == C.DEAD)
     count_now = removed & ~incl & act
@@ -336,8 +324,8 @@ def _phase4_prologue(st8, dl, doil, doi, sev8, var8, wdet, isinf, act,
             iot_val = jnp.where((var == v) & (iot_idx_c == t),
                                 iot2[v, t], iot_val)
     inf_base = (iot_val
-                * jnp.where(asympt, _tab(asym2, var, V), 1.0)
-                * _tab(infm2, var, V))
+                * jnp.where(asympt, _tab(asym, var, V), 1.0)
+                * _tab(infm, var, V))
     exposer = can_expose & iot_ok & act & ~wdet & isinf
     inf_base = jnp.where(exposer, inf_base, 0.0)
     exposer = inf_base > 0
@@ -356,14 +344,11 @@ def _phase4_prologue(st8, dl, doil, doi, sev8, var8, wdet, isinf, act,
 
 
 def _finalize_body(st, sevv, var, var_new, dl, doil, doi, newly, isinf,
-                   trc, det, det_hosp, day2, ct2):
+                   trc, det, det_hosp, day, ct):
     """End-of-day merge of today's new infections into the carried
     agent fields plus the narrow output casts (person_infect writes,
-    main.pyx:209-235) — ONE fused pass instead of ~10 XLA fusions.
-    16-bit streams compute in i32 and cast at the stores (Mosaic has no
-    16-bit vector arithmetic)."""
-    day = day2[0, 0]
-    ct = ct2[0, 0] != 0
+    main.pyx:209-235). 16-bit streams compute in i32 and cast at the
+    stores."""
     st_n = jnp.where(newly, C.INCUBATION, st)
     var_n = jnp.where(newly, var_new, var)
     doi_n = jnp.where(newly, day, doi.astype(I32))
@@ -380,7 +365,7 @@ def _finalize_body(st, sevv, var, var_new, dl, doil, doi, newly, isinf,
 
 def _make_receiver_body(v_count, n_bands):
     """Exposure receiver side: per-band dart totals → per-agent hit
-    intensity, infection draw and variant pick (ONE fused pass)."""
+    intensity, infection draw and variant pick."""
     def body(band, *rest):
         lams = rest[:v_count]
         isinf, hasimm, act, u_inf, u_var = rest[v_count:v_count + 5]
@@ -390,11 +375,8 @@ def _make_receiver_body(v_count, n_bands):
             d_ag = jnp.zeros(band.shape, F32)
             for b in range(n_bands):
                 d_ag = jnp.where(band == b, D2[v, b], d_ag)
-            # 1 − exp(x) instead of −expm1(x): expm1 has no Pallas TPU
-            # lowering; at the smallest nonzero intensity (one dart,
-            # λ ≈ −1e-5) the f32 error is ~1e-3 relative — far below
-            # the sampling noise of the infection draw it feeds
-            hs.append(1.0 - jnp.exp(d_ag * lams[v]))
+            # 1 − (1 − λ)^D = −expm1(D · log1p(−λ))
+            hs.append(-jnp.expm1(d_ag * lams[v]))
         one_minus = 1.0
         h_sum = 0.0
         for h_v in hs:
@@ -415,11 +397,10 @@ def _make_receiver_body(v_count, n_bands):
 
 
 def _make_recv_front_body(v_count, n_bands):
-    """Exposure receiver + progression front half in ONE fused pass:
-    both are pure elementwise over the agent axis with no data
-    dependency between them, and they share several input streams
-    (state, severity, is_infected, active) — merging saves a kernel
-    launch plus a re-read of the shared streams."""
+    """Exposure receiver + progression front half as one elementwise
+    function: both are pure elementwise over the agent axis with no
+    data dependency between them, and they share several input streams
+    (state, severity, is_infected, active)."""
     recv = _make_receiver_body(v_count, n_bands)
 
     def body(band, *rest):
@@ -427,33 +408,31 @@ def _make_recv_front_body(v_count, n_bands):
         (isinf, hasimm, act, u_inf, u_var,
          st8, doi, dl, o2r, sev8, wdet, dout, doil, u_day,
          var8) = rest[v_count:v_count + 15]
-        D2, rbt, rwt, scal_i, dap2 = rest[v_count + 15:]
+        D2, rbt, rwt, scal_i, dap = rest[v_count + 15:]
         nc, nv, susc = recv(band, *lams, isinf, hasimm, act,
                             u_inf, u_var, D2)
         front = _phase5_front(st8, doi, isinf, act, dl, o2r, sev8, wdet,
                               dout, doil, u_day, var8, rbt, rwt, scal_i,
-                              dap2)
+                              dap)
         return (nc, nv, susc) + front
     return body
 
 
 def _phase5_front(st8, doi, isinf, act, dl, o2r, sev8, wdet, dout, doil,
-                  u, var8, rbt, rwt, scal_i, dap2):
+                  u, var8, rbt, rwt, scal_i, dap):
     """Progression pre-ledger: advance counters, fire transitions,
     symptom-onset testing seeks and capacity requests
     (person_advance/person_become_ill, main.pyx:284-440). Pure
-    elementwise — runs as ONE fused pass via ops.fusedmap."""
+    elementwise; 16-bit fields compute in i32 and cast back at the
+    stores."""
     st = st8.astype(I32)
     sev = sev8.astype(I32)
     var = var8.astype(I32)
-    # 16-bit vector arithmetic (maxsi etc.) does not legalize in Mosaic
-    # — compute in i32 and cast back at the stores
     dl = dl.astype(I32)
     doil = doil.astype(I32)
-    V = rbt.shape[1]
-    day = scal_i[0, 0]
-    mode = scal_i[0, 1]
-    dap = dap2[0, 0]
+    V = rbt.shape[0]
+    day = scal_i[0]
+    mode = scal_i[1]
 
     adv_inc = (st == C.INCUBATION) & (doi.astype(I32) < day) & isinf & act
     adv_ill = (st == C.ILLNESS) & isinf & act
@@ -506,13 +485,12 @@ def _phase5_post(st8, sev8, var8, o2r, dl_a, gbed, gicu, u, bed_request,
     (person_hospitalize/transfer_to_icu/release, main.pyx:321-370).
     The same ``u`` serves the bed- and ICU-denial draws: an agent ends
     illness OR ends a ward stay on a given day, never both, so the
-    uses are disjoint per agent-day. Pure elementwise — ONE fused
-    pass via ops.fusedmap."""
+    uses are disjoint per agent-day. Pure elementwise."""
     st = st8.astype(I32)
     sev = sev8.astype(I32)
     var = var8.astype(I32)
-    dl_a = dl_a.astype(I32)   # i16 vector arithmetic trips Mosaic
-    V = rbt.shape[1]
+    dl_a = dl_a.astype(I32)
+    V = rbt.shape[0]
     rb = _tab(rbt, var, V)
     rw = _tab(rwt, var, V)
 
@@ -572,34 +550,6 @@ GROUP_ROW = {
 }
 
 
-def _output_masks(active, is_inf, has_imm, dov, det, st, ever_icu,
-                  dout, newly):
-    """The GROUP_ROW output masks from raw end-of-day agent fields —
-    pure elementwise, so it runs INSIDE the blockwise MXU one-hot
-    kernel (fused_fn_onehot_sum) and, identically, in the XLA fallback.
-    16-bit fields are cast up front (Mosaic has no 16-bit vector
-    arithmetic). Row order must match GROUP_ROW."""
-    st = st.astype(jnp.int32)
-    dov = dov.astype(jnp.int32)
-    ever = is_inf | has_imm
-    dead = st == C.DEAD
-    return [
-        active & ~ever,                       # susceptible
-        active & (dov >= 0),                  # vaccinated
-        active & is_inf,                      # infected
-        active & ever,                        # all_infected
-        active & det,                         # detected (today)
-        active & det,                         # all_detected (delta; cum added by caller)
-        active & (st == C.IN_ICU),            # in_icu
-        active & ever_icu,                    # cum_icu
-        active & (st == C.HOSPITALIZED),      # in_ward
-        active & dead,                        # dead
-        active & (st == C.RECOVERED),         # recovered
-        active & dead & dout,                 # non_hospital_deaths
-        active & newly,                       # new_infections
-    ]
-
-
 def _output_masks_reduced(active, is_inf, has_imm, dov, det, st, ever_icu,
                           dout, newly):
     """The 10 GROUP_ROW masks that genuinely need the agent axis. The
@@ -610,9 +560,8 @@ def _output_masks_reduced(active, is_inf, has_imm, dov, det, st, ever_icu,
                     RECOVERED — the same identity test_conservation
                     asserts)
       all_detected = detected + carried cumulative
-    Dropping them cuts the phase-7 MXU lhs from (N, 13) to (N, 10)
-    bf16 — the lhs materialization (concat + per-mask reshapes) was
-    ~0.6 ms/day in the day-200 device trace."""
+    Dropping them cuts the phase-7 one-hot dot's lhs from 13 rows to
+    10."""
     st = st.astype(jnp.int32)
     dov = dov.astype(jnp.int32)
     ever = is_inf | has_imm
@@ -648,12 +597,10 @@ def tier_bounds(head: int, cap: int):
 class DayKeys(NamedTuple):
     """All RNG key material one day consumes, pre-derived.
 
-    Scalar threefry derivations on this toolchain cost ~30-70 µs EACH
-    (device trace: the per-day fold_in+split tree alone was 0.6 ms/day);
-    batching every derivation over (chunk_days × parts) turns ~25
-    scalar ops per day into ~10 vectorized ops per CHUNK. Entries are
-    bit-identical to the fold_in chains they replace (threefry is
-    deterministic and element-independent under vmap)."""
+    Batching every derivation over (chunk_days × parts) turns ~25
+    scalar threefry ops per day into ~10 vectorized ops per CHUNK.
+    Entries are bit-identical to the fold_in chains they replace
+    (threefry is deterministic and element-independent under vmap)."""
     base: jnp.ndarray       # (17, 2) split(fold_in(base_key, day), 17)
     l1: jnp.ndarray         # (P1, 2) fold_in(k1, part)
     e1: jnp.ndarray         # (PE, 2) fold_in(k_e1, part)
@@ -709,7 +656,6 @@ def day_step(cfg: EngineConfig, arrays: ModelArrays, sched: SchedRow,
     V = cfg.nr_variants
     P = C.NR_PLACES
     B = arrays.band_counts.shape[0]
-    fm = None if cfg.pallas else "xla"  # fused-op kernel gate
 
     day = carry.day
     if day_keys is None:
@@ -743,7 +689,7 @@ def day_step(cfg: EngineConfig, arrays: ModelArrays, sched: SchedRow,
 
     # ---- phase 2: R_t totals over newly-removed agents ---------------
     # the element passes (newly-removed mask, included update, masked
-    # counts) ride the phase-4 prologue launch — they read the same
+    # counts) live in the phase-4 prologue — they read the same
     # start-of-day state streams; only the two sums live here (the
     # removal test uses start-of-day state either way)
 
@@ -761,26 +707,21 @@ def day_step(cfg: EngineConfig, arrays: ModelArrays, sched: SchedRow,
     Tcap = cfg.infection_buffer  # compact traced-source buffer size
     CAPB = cfg.max_infectees
     bkt_fill = carry.bkt_fill
-    # the bucket table stays FLAT (N·CAPB,) on device: a (N, CAPB)
-    # view would be tiled T(8,128) with the 64-wide rows lane-padded to
-    # 128 (2× HBM) and every flat<->2-D reshape a ~2 ms relayout copy
-    # (day-200 trace: reshape.1606/.16361 + layout-flip copy pairs)
+    # the bucket table stays FLAT (N·CAPB,) on device, so no flat<->2-D
+    # reshape of the table is ever needed
     #
     # apply YESTERDAY's pending appends first: the scatter is then the
     # carried table's first (and only pre-write) use, so XLA updates it
     # in place. Scattering at phase 6 — after the tracing cond's
-    # gathers — forced a full 432 MB copy every day (the scheduler
-    # cannot prove the write-after-read safe through the conditional;
-    # measured ~1.15 ms/day, day-200 trace 2026-08-20). Tracing
-    # semantics are identical either way: phase-3 reads only ever saw
-    # appends from previous days.
+    # gathers — would force a full copy of the table every day (the
+    # scheduler cannot prove the write-after-read safe through the
+    # conditional). Tracing semantics are identical either way: phase-3
+    # reads only ever saw appends from previous days.
     # tiered apply: pending entries are a prefix of the stream (the
     # append sort puts invalid slots last; mid-prefix overflow slots
     # are drop sentinels), so the head span applies unconditionally and
-    # geometric tails ride conds on the pending count — the full 64k
-    # stream measured ~24 ns/update against the 432 MB table (in-place
-    # scatter thunk, day-200 trace 2026-08-21) while p75 of daily
-    # appends is ~1k
+    # geometric tails ride conds on the pending count (p75 of daily
+    # appends is ~1k of the 64k stream)
     _ah = min(cfg.infection_head, cfg.infection_buffer)
     bd_flat = carry.bkt_dst.at[carry.app_pos[:_ah]].set(
         carry.app_val[:_ah], mode="drop", unique_indices=True)
@@ -814,9 +755,8 @@ def day_step(cfg: EngineConfig, arrays: ModelArrays, sched: SchedRow,
         removal, like the reference's persistent ``infector`` field).
 
         The earlier formulation streamed an append-log edge TABLE:
-        three full-table passes per tracing day cost ~2.7 ms/day at
-        HUS scale (day-200 device trace) because every pass touched
-        every live edge regardless of the queue size. Bucket rows make
+        three full-table passes per tracing day, each touching every
+        live edge regardless of the queue size. Bucket rows make
         each lookup queue-sized — (member tier × bucket-column tier)
         gathers gated by the members' actual fill counts — and remove
         the prune/compaction machinery entirely (buckets of removed
@@ -848,12 +788,11 @@ def day_step(cfg: EngineConfig, arrays: ModelArrays, sched: SchedRow,
             return jnp.where(hit_ok, r2_tab[jnp.clip(tgt, 0, N - 1)], N)
 
         # Tier execution: ONE lax.switch on the tier CEILING, each
-        # branch processing members [0, sizes[k]) in a single fused
-        # block — the earlier formulation chained cumulative tier
-        # bodies under lax.cond, paying every active tier's full op
-        # set (slice/gather/uniform/compare/2 scatters ≈ 15-20 ops) on
-        # heavy days (~125 small ops/day at the epidemic peak, day-200
-        # trace 2026-08-21). Each branch draws ONE uniform block of its
+        # branch processing members [0, sizes[k]) in a single block —
+        # the earlier formulation chained cumulative tier bodies under
+        # lax.cond, paying every active tier's full op set
+        # (slice/gather/uniform/compare/2 scatters ≈ 15-20 ops) on
+        # heavy days. Each branch draws ONE uniform block of its
         # merged shape from the pass's first tier key (assembling the
         # old per-tier key blocks would add ~7k threefry equations to
         # the jaxpr — a compile-time hazard); this RE-KEYS the tracing
@@ -924,7 +863,7 @@ def day_step(cfg: EngineConfig, arrays: ModelArrays, sched: SchedRow,
                 (hit, hit_r2))
 
         # ---- level 1 (sources: the drained queue, compacted once) ----
-        dbuf, n_d = compact_indices(drained & active, Tcap, force=fm)
+        dbuf, n_d = compact_indices(drained & active, Tcap)
 
         def l1_branch(k):
             end = mem_sizes[k]
@@ -963,7 +902,7 @@ def day_step(cfg: EngineConfig, arrays: ModelArrays, sched: SchedRow,
         # (infector attempts were folded in above); the fill>0 filter
         # keeps the compaction sized to members who own non-empty lists
         frontier = newq1 & state.is_infected & (bkt_fill > 0)
-        fbuf, n_f = compact_indices(frontier, Tcap, force=fm)
+        fbuf, n_f = compact_indices(frontier, Tcap)
         hit2_l2, _ = bucket_passes(
             fbuf, None, dk.e2, False,
             jnp.zeros(N, bool), jnp.zeros(N, bool), n_f)
@@ -985,8 +924,8 @@ def day_step(cfg: EngineConfig, arrays: ModelArrays, sched: SchedRow,
     # the boundary age vaccinate fully, the boundary age binomially at
     # the exact leftover fraction (within-age order is arbitrary in the
     # reference too, main.pyx:560-584; see docs/parity.md).
-    # The whole block (one MXU matmul + N-uniform + N-pass per slot,
-    # ~1 ms/day) runs under lax.cond: the default calendar has no
+    # The whole block (one matmul + N-uniform + N-pass per slot) runs
+    # under lax.cond: the default calendar has no
     # vaccinations before late 2020, and the per-slot uniforms are
     # fold_in-keyed (not a sequential stream), so skipping idle days is
     # bit-exact — on idle days nr=0 made every ``take`` False anyway.
@@ -996,8 +935,7 @@ def day_step(cfg: EngineConfig, arrays: ModelArrays, sched: SchedRow,
             mn, mx = arrays.vacc_min_age[s], arrays.vacc_max_age[s]
             eligible = (active & ~is_dead & ~was_detected & (dov < 0)
                         & (age >= mn) & (age <= mx))
-            counts = fused_onehot_sum([eligible], arrays.ages, A,
-                                      force="xla")[0]            # (A,)
+            counts = onehot_counts([eligible], arrays.ages, A)[0]  # (A,)
             older = jnp.concatenate(
                 [jnp.cumsum(counts[::-1])[:-1][::-1], jnp.zeros(1, F32)])
             # the whole oldest-first decision folds into ONE per-age
@@ -1032,21 +970,20 @@ def day_step(cfg: EngineConfig, arrays: ModelArrays, sched: SchedRow,
     z = jr.normal(k_contact, (N,), F32)
     # nc_ag is a pure function of mobility (contact_base is static), and
     # mobility only changes on intervention days — reuse the carried
-    # expansion otherwise (the 2-term one-hot matmul costs ~0.33 ms/day;
-    # the skipped cond is ~free). Bit-identical: same inputs, same dots.
+    # expansion otherwise. Bit-identical: same inputs, same dots.
     nc_ag = jax.lax.cond(
         jnp.all(sched.mobility == carry.mob),
         lambda _: carry.nc_ag,
         lambda _: expand_by_age(arrays, nc_a), 0)
     # iot lookup + exposer gating + contact counts + the R_t element
-    # passes: ONE fused pass (main.pyx:895-953, 1306-1320, 1968-1972)
-    exposer, inf_base, k_s, vts, count_now, included, ninf_m = fused_map(
-        _phase4_prologue, 7,
-        [state.state, state.days_left, state.day_of_illness,
-         state.day_of_infection, state.severity, state.variant,
-         was_detected, state.is_infected, active, z, nc_ag,
-         state.included_in_totals, state.n_infected],
-        [arrays.iot, arrays.asymp_mult, arrays.inf_mult, day], force=fm)
+    # passes (main.pyx:895-953, 1306-1320, 1968-1972)
+    exposer, inf_base, k_s, vts, count_now, included, ninf_m = (
+        _phase4_prologue(
+            state.state, state.days_left, state.day_of_illness,
+            state.day_of_infection, state.severity, state.variant,
+            was_detected, state.is_infected, active, z, nc_ag,
+            state.included_in_totals, state.n_infected,
+            arrays.iot, arrays.asymp_mult, arrays.inf_mult, day))
     exposed_per_day = jnp.sum(k_s, dtype=I32)
     total_infectors = jnp.sum(count_now, dtype=I32)
     total_infections = jnp.sum(ninf_m, dtype=I32)
@@ -1062,28 +999,15 @@ def day_step(cfg: EngineConfig, arrays: ModelArrays, sched: SchedRow,
     a_ = m[None] * arrays.mask_po[:, None, None]
     b_ = m[None] * arrays.mask_pw[:, None, None]
     save = a_ + b_ - a_ * b_                                     # (V, A, P)
-    # candidate-dart success per (variant, source age, target band):
-    # place-marginalized contact prob × (1−mask save) × band σmax
-    Tq = jnp.einsum("apb,vap->vab", q_hat, 1.0 - save) * arrays.sigma_max[:, None, :]
+    Tq = dart_success(q_hat, save, arrays.sigma_max)            # (V, A, B)
 
     # aggregate contact counts by (age, variant, iot-day, asympt) group;
     # binomial(k, p) sums over same-p sources, so per-group totals give
     # exact dart counts at a tiny fraction of per-agent sampling cost.
-    # The (N → groups) reduction runs on the MXU as blockwise in-kernel
-    # one-hot dots (ops/fusedmap.py): a scatter-add costs ~15 ms in
-    # this program and the XLA matmul materialized a (N, VTS) bf16
-    # operand in HBM. Exact: k ≤ 128 and one-hots are 0/1, both exact
-    # in bf16; accumulation in f32.
+    # Exact: k ≤ 128 are integers, summed in f32 (ops/histogram.py).
     VTS = V * C.IOT_LEN * 2
-    # force="xla": measured in-situ 2026-08-19 (day-200 trace) the XLA
-    # dot form now beats the Pallas block kernel for BOTH histogram
-    # calls (bihistogram 0.91 -> ~0.3 ms/day, by_group 0.92 -> ~0.7;
-    # steady 14.2 -> 13.1 ms/day) — the pre-transposed lhs + weight
-    # folding that fixed the kernel also removed the XLA form's extra
-    # N-passes. Bit-identical either way (exact-integer f32 sums).
-    K_age = fused_bihistogram(jnp.where(exposer, vts, -1), VTS,
-                              k_s.astype(F32), arrays.ages, A,
-                              force="xla")                          # (VTS, A)
+    K_age = bihistogram(jnp.where(exposer, vts, -1), VTS,
+                        k_s.astype(F32), arrays.ages, A)           # (VTS, A)
     K_g = K_age.T.reshape(A, V, C.IOT_LEN, 2)
 
     # per-group infectiousness: iot[v,t] · asymp_mult[v]^s · inf_mult[v],
@@ -1101,16 +1025,15 @@ def day_step(cfg: EngineConfig, arrays: ModelArrays, sched: SchedRow,
     # accepted with σ(age)/σmax — thinning makes the per-target hit
     # count Binomial(D, σ/(σmax·N_band)); infection = at least one hit.
     # D[v, band] expands per-agent with band selects; log1p(−λ) is a
-    # static per-agent table. ONE fused pass (ops.fusedmap).
+    # static per-agent table.
     band_t = arrays.band_ag                                      # (N,)
     u_inf = jr.uniform(k_inf, (N,), F32)
     u_var = jr.uniform(k_var, (N,), F32)
 
-    # ---- phase 5 (front half shares the receiver's launch) -------------
+    # ---- phase 5 (front half shares the receiver's pass) ---------------
     # the receiver pass and the progression front half are independent
-    # elementwise passes over the same agent streams — ONE launch and
-    # one read of the shared (state, severity, is_infected, active)
-    # streams instead of two; the ONE uniform array (u_day) serves the
+    # elementwise passes over the same agent streams; the ONE uniform
+    # array (u_day) serves the
     # onset-seek, bed-denial and ICU-denial draws (disjoint per
     # agent-day — an agent fires at most one of those transitions/day)
     o2r = state.o2r
@@ -1120,39 +1043,35 @@ def day_step(cfg: EngineConfig, arrays: ModelArrays, sched: SchedRow,
     (new_contact, new_variant, susceptible,
      dl_a, day_of_illness, onset, queue_new, die_home, bed_request,
      recover_ill, hosp_end, icu_request, hosp_recover, icu_end,
-     icu_die, icu_recover) = fused_map(
-        _make_recv_front_body(V, B), 16,
-        [band_t] + [arrays.lam_log1p_ag[v] for v in range(V)]
-        + [state.is_infected, state.has_immunity, active, u_inf, u_var,
-           state.state, state.day_of_infection, state.days_left, o2r,
-           state.severity, was_detected, state.death_outside,
-           state.day_of_illness, u_day, state.variant],
-        [D, arrays.ratio_before_hosp, arrays.ratio_in_ward, scal_i,
-         sched.detect_anyway_p], force=fm)
+     icu_die, icu_recover) = _make_recv_front_body(V, B)(
+        band_t, *[arrays.lam_log1p_ag[v] for v in range(V)],
+        state.is_infected, state.has_immunity, active, u_inf, u_var,
+        state.state, state.day_of_infection, state.days_left, o2r,
+        state.severity, was_detected, state.death_outside,
+        state.day_of_illness, u_day, state.variant,
+        D, arrays.ratio_before_hosp, arrays.ratio_in_ward, scal_i,
+        sched.detect_anyway_p)
     queued = queued | queue_new
 
     offset = jr.randint(k_offset, (), 0, N)
-    # both ledgers (beds, ICU) ride one streaming launch; the columns
-    # stay flat (N,) streams end-to-end — an axis-1 stack cost ~0.3
-    # ms/day of interleave relayouts (day-200 trace 2026-08-21)
+    # both ledgers (beds, ICU) ride one call; the columns stay flat
+    # (N,) streams end-to-end
     (granted_bed, granted_icu), after2 = clamped_counter_grants(
         [hosp_end.astype(I32), icu_end.astype(I32)],
         [bed_request, icu_request],
-        jnp.stack([beds_avail, icu_avail]), offset, force=fm)
+        jnp.stack([beds_avail, icu_avail]), offset)
     beds_after, icu_after = after2[0], after2[1]
 
     (new_st, days_left, is_infected, has_immunity, ever_icu,
-     was_detected, detect_hosp) = fused_map(
-        _phase5_post, 7,
-        [state.state, state.severity, state.variant, o2r, dl_a,
-         granted_bed, granted_icu, u_day, bed_request, icu_request,
-         die_home, recover_ill, hosp_recover, icu_die, icu_recover,
-         was_detected, state.is_infected, state.has_immunity,
-         state.ever_icu, onset],
-        [arrays.ratio_before_hosp, arrays.ratio_in_ward,
-         arrays.p_icu_death_no_beds, arrays.p_hosp_death_no_beds],
-        force=fm)
-    # detect_hosp merges into detected_today inside the finalize kernel
+     was_detected, detect_hosp) = _phase5_post(
+        state.state, state.severity, state.variant, o2r, dl_a,
+        granted_bed, granted_icu, u_day, bed_request, icu_request,
+        die_home, recover_ill, hosp_recover, icu_die, icu_recover,
+        was_detected, state.is_infected, state.has_immunity,
+        state.ever_icu, onset,
+        arrays.ratio_before_hosp, arrays.ratio_in_ward,
+        arrays.p_icu_death_no_beds, arrays.p_hosp_death_no_beds)
+    # detect_hosp merges into detected_today in the finalize pass
     new_st = new_st.astype(I32)
 
     # ---- phase 6: merge new infections ---------------------------------
@@ -1187,9 +1106,9 @@ def day_step(cfg: EngineConfig, arrays: ModelArrays, sched: SchedRow,
 
     # import days are sparse — skip the pick machinery otherwise. The
     # cond returns (M,)-sized targets/variants, NOT an (N,)-sized pack:
-    # an N-sized cond output costs a fixed ~0.25 ms/day even on the
-    # skip branch (see the scatter-tail cond below), and the three
-    # M=512-stream scatters replace three full-N merge passes.
+    # an N-sized cond output is materialized even on the skip branch,
+    # and the three M=512-stream scatters replace three full-N merge
+    # passes.
     import_tgt, imp_var = jax.lax.cond(
         tot_imports > 0, do_imports,
         lambda _: (jnp.full(M, N, I32), jnp.zeros(M, I32)), 0)
@@ -1206,27 +1125,22 @@ def day_step(cfg: EngineConfig, arrays: ModelArrays, sched: SchedRow,
     # costs a fraction of full-N draws.
     #
     # The slot pipeline (bisect compaction, attribution bisects, gumbel
-    # age draw, gamma draws) costs ~0.45 ms per bisection round per 64k
-    # queries (gather-rate bound, see tools/profile_ops_sync.py), so it
-    # runs in two tiers: a small head every day, and the large tail
-    # under lax.cond only on days with > infection_head new infections.
+    # age draw, gamma draws) is gather-bound and scales with the slot
+    # count, so it runs in tiers: a small head every day, and the large
+    # tail only on days with > infection_head new infections.
     Kcap = cfg.infection_buffer
     Kh = min(cfg.infection_head, Kcap)
-    # single-launch streaming prefix sums (ops/fusedmap.py): the XLA
-    # reduce-window pair for these two scans cost 3.8 ms/day in the
-    # device trace; the sequential-carry kernel reads each input byte
-    # once. cum_newly stays exact (integer-valued f32); cum_cat's float
-    # association changes vs jnp.cumsum — an equally-valid sample path,
-    # same non-monotone-dip magnitude (docs/parity.md deviation 12)
+    # cum_newly is exact (integer-valued f32); cum_cat is a float sum
+    # whose association follows XLA's cumsum (docs/parity.md
+    # deviation 12)
     c_s = jnp.where(exposer, k_s.astype(F32) * inf_base, 0.0)
-    cum_newly = fused_concat_prefix(newly.astype(F32), None, 1, force=fm,
-                                    exact_int=True)
+    cum_newly = jnp.cumsum(newly.astype(F32))
     # per-variant source weights as ONE concatenated (V*N,) cumulative
     # pass: variant v's segment lives at [v*N, (v+1)*N), so attribution
     # bisects ALL slots in one bracketed search instead of one bisect
     # per variant (the bracket [v*N + age_start, ...) selects both the
     # variant segment and the age cohort)
-    cum_cat = fused_concat_prefix(c_s, variant, V, force=fm)
+    cum_cat = concat_cumsum(c_s, variant, V)
     n_new = cum_newly[-1].astype(I32)
     problem = jnp.where(n_new > Kcap,
                         problem | C.PROBLEM_INFECTION_BUFFER_OVERFLOW, problem)
@@ -1241,8 +1155,8 @@ def day_step(cfg: EngineConfig, arrays: ModelArrays, sched: SchedRow,
         used = slots < jnp.minimum(n_new, Kcap)
         return jnp.where(used, buf, N)
 
-    # the agent layout is age-sorted, so per-variant weights (lanes of
-    # the fused cumulative pass above) are already in age order — no
+    # the agent layout is age-sorted, so per-variant weights (segments
+    # of the cumulative pass above) are already in age order — no
     # N-permutation gather needed
     C_av = jnp.sum(K_g * ig, axis=(2, 3))                        # (A, V)
     kappa_inc = 1.0 / (C.INCUBATION_CV ** 2)
@@ -1260,8 +1174,8 @@ def day_step(cfg: EngineConfig, arrays: ModelArrays, sched: SchedRow,
         bp = jnp.clip(buf_part, 0, N - 1)
         contact_p = new_contact[bp] & used
         age_i = age[bp]
-        # band via the ≤101-entry static table (vectorized selects,
-        # ~free) instead of an N-array gather (~58 µs per tier/day)
+        # band via the ≤101-entry static table instead of an N-array
+        # gather
         b_i = arrays.band_of_age[age_i].astype(I32)
         v_i = variant_new[bp]
         w = C_av.T[v_i] * Tq.transpose(0, 2, 1)[v_i, b_i]        # (m, A)
@@ -1275,8 +1189,7 @@ def day_step(cfg: EngineConfig, arrays: ModelArrays, sched: SchedRow,
         off = v_i * N
         lo_i = off + arrays.age_start[a_star]
         hi_i = off + arrays.age_start[a_star + 1]
-        # ONE batched gather for both bracket endpoints (each gather op
-        # pays a ~30 µs floor; the concat doubles queries for ~2 µs)
+        # ONE batched gather for both bracket endpoints
         both = cum_cat[jnp.concatenate([jnp.maximum(lo_i - 1, 0),
                                         jnp.maximum(hi_i - 1, 0)])]
         lo_c = jnp.where(lo_i > 0, both[:m], 0.0)
@@ -1313,8 +1226,8 @@ def day_step(cfg: EngineConfig, arrays: ModelArrays, sched: SchedRow,
     # tail with the drop-identity values. The earlier cumulative
     # cond chain paid every active tier's full pipeline op set — incl.
     # ~15 bisection-gather rounds per tier for the compaction and
-    # attribution searches (~0.5 ms/day at the epidemic peak, day-200
-    # trace). Draws use the part-0 keys at the branch's merged shape —
+    # attribution searches. Draws use the part-0 keys at the branch's
+    # merged shape —
     # a RE-KEYING vs round 4 (i.i.d. uniforms either way;
     # docs/parity.md re-keying note).
     slot_ends = [lo + seg for lo, seg in tier_bounds(Kh, Kcap)]
@@ -1365,9 +1278,8 @@ def day_step(cfg: EngineConfig, arrays: ModelArrays, sched: SchedRow,
     #
     # CRITICAL layout rule: the (N·CAPB,) bucket table must NEVER be a
     # cond/switch output — an XLA conditional materializes each
-    # table-sized result (and defeats scan-carry aliasing), measured
-    # 4.2 ms/day of conditionals + 2.6 ms/day of 432 MB copies at HUS
-    # scale (day-200 trace, 2026-08-20). The branches therefore return
+    # table-sized result (and defeats scan-carry aliasing), a full copy
+    # of the table on every call. The branches therefore return
     # only slot-sized (pos, val, src) streams, padded with drop
     # sentinels, and the table is touched exclusively by in-place
     # tiered scatters below (joining the slot-domain scatter tiers).
@@ -1424,14 +1336,12 @@ def day_step(cfg: EngineConfig, arrays: ModelArrays, sched: SchedRow,
 
     # Slot-domain scatters in two tiers: the first ``Kh`` slots always,
     # the tails only when today's infection count exceeds the head
-    # (used slots are a prefix of the slot buffer; a scatter costs
-    # ~5 ns per STREAMED slot, dropped sentinels included, so the full
-    # Kcap stream paid ~0.3 ms/scatter on quiet days). The tails ride
-    # ONE lax.cond: a conditional whose output is an (N,)-sized array
-    # costs a fixed ~0.25 ms/day even on the identity branch (day-60
-    # trace, conditional.234-.243), so eight per-array conds were
-    # ~1.8 ms/day of pure branch overhead. Head/tail indices are
-    # disjoint agent ids (sentinels drop), so the split is bit-exact.
+    # (used slots are a prefix of the slot buffer, and a scatter streams
+    # its whole span, dropped sentinels included). The tails ride ONE
+    # lax.cond per tier: a conditional whose output is an (N,)-sized
+    # array pays for that output even on the identity branch, so one
+    # cond carries all six arrays. Head/tail indices are disjoint agent
+    # ids (sentinels drop), so the split is bit-exact.
     scatter_jobs = [
         (state.infector, buf_agent, infector_new, False),
         (state.n_infected, src_scatter, jnp.ones_like(infector_new), True),
@@ -1457,9 +1367,9 @@ def day_step(cfg: EngineConfig, arrays: ModelArrays, sched: SchedRow,
                          for d, j in zip(arrs, scatter_jobs))
 
         # geometric tail tiers: a scatter streams its whole span
-        # (dropped sentinels included, ~5 ns/slot), so one Kh->Kcap
-        # tail paid 8 x 0.31 ms on any day past the head while only
-        # ~hi_t slots were live; the extra conds are ~free when skipped
+        # (dropped sentinels included), so one Kh->Kcap tail would
+        # stream the full buffer on any day past the head while only
+        # ~hi_t slots are live
         scat = jax.lax.cond(n_new > lo_t, _tails, lambda a: a, scat)
         lo_t = hi_t
     (infector, n_infected, sev_out, death_outside,
@@ -1470,9 +1380,8 @@ def day_step(cfg: EngineConfig, arrays: ModelArrays, sched: SchedRow,
     # may lead the table by a day); the TABLE scatter is deferred into
     # the carry and applied at the top of the next step — see the
     # phase-0 comment. The fill stream is valid-first (sorted append
-    # order puts SENT last), so the tail spans ride conds — (N,)-sized
-    # cond carries are ~free when skipped, and a full 64k stream cost
-    # ~0.45 ms/day for a p75 of ~1k live entries.
+    # order puts SENT last), so the tail spans ride conds (a p75 of
+    # ~1k live entries in a 64k stream).
     fill_ones = jnp.ones_like(app_src)
     bkt_fill = bkt_fill.at[app_src[:Kh]].add(fill_ones[:Kh], mode="drop")
     lo_f = Kh
@@ -1486,40 +1395,25 @@ def day_step(cfg: EngineConfig, arrays: ModelArrays, sched: SchedRow,
         lo_f = hi_f
 
     # ---- finalize: merge new infections into the carried fields ------
-    # ONE fused launch for the ~10 elementwise merge/cast passes
-    # (new-state where-merges + the int8/int16 output casts) — as
-    # separate XLA fusions they cost ~0.15-0.2 ms/day of launch floors
-    # (day-200 trace 2026-08-21). A new infectee mallocs its OWN
-    # (empty) infectee list iff contact tracing is active at its
-    # infection time (main.pyx:227-233).
+    # the elementwise merge/cast passes (new-state where-merges + the
+    # int8/int16 output casts). A new infectee mallocs its OWN (empty)
+    # infectee list iff contact tracing is active at its infection time
+    # (main.pyx:227-233).
     (st8_out, sev8_out, var8_out, dl16_out, doil16_out, doi16_out,
-     is_infected, traceable, detected_today) = fused_map(
-        _finalize_body, 9,
-        [new_st, sev_out, variant, variant_new, days_left,
-         day_of_illness, state.day_of_infection, newly, is_infected,
-         state.traceable, detected_today, detect_hosp],
-        [day, ct_active.astype(I32)], force=fm)
+     is_infected, traceable, detected_today) = _finalize_body(
+        new_st, sev_out, variant, variant_new, days_left,
+        day_of_illness, state.day_of_infection, newly, is_infected,
+        state.traceable, detected_today, detect_hosp, day, ct_active)
 
     # ---- phase 7: outputs ----------------------------------------------
-    # 10 GROUP_ROW masks are computed INSIDE the blockwise one-hot
-    # kernel from 9 raw field streams (_output_masks_reduced) instead of
-    # being materialized as (N,) bools in HBM; susceptible / infected /
+    # 10 GROUP_ROW masks from 9 raw end-of-day field streams, counted
+    # per output age group in one one-hot dot; susceptible / infected /
     # all_detected are exact per-group derivations (see the mask fn)
-    fields = [active, is_infected, has_immunity, dov, detected_today,
-              st8_out, ever_icu, death_outside, newly]
-    # force="xla" measured faster than the Pallas kernel in situ at the
-    # time of the transpose fixes; REINA_BY10_KERNEL=1 re-enables the
-    # kernel for A/B (the XLA form pays 8 pred[N,1] bitcast copies +
-    # the (N,10) bf16 concat ≈ 0.57 ms/day in the day-200 trace).
-    # TRACE-TIME only: the env var is read when the step traces and is
-    # not part of any jit cache key — flip it in a fresh process.
-    import os as _os
-    _by10_force = (None if cfg.pallas
-                   and _os.environ.get("REINA_BY10_KERNEL") == "1"
-                   else "xla")
-    by10 = fused_fn_onehot_sum(
-        fields, _output_masks_reduced, 10, arrays.group_of_agent,
-        cfg.nr_groups + 1, force=_by10_force)[:, :-1].astype(I32)
+    by10 = onehot_counts(
+        _output_masks_reduced(active, is_infected, has_immunity, dov,
+                              detected_today, st8_out, ever_icu,
+                              death_outside, newly),
+        arrays.group_of_agent, cfg.nr_groups + 1)[:, :-1].astype(I32)
     (vacc_g, ever_g, det_g, inicu_g, cicu_g, ward_g, dead_g, rec_g,
      nh_g, new_g) = by10
     all_detected = carry.all_detected + det_g
@@ -1595,8 +1489,8 @@ def _exposures_by_place(key, K_g, q_hat):
     (P,) vector is emitted, each place total keeps its exact
     Binomial(K_a, q_ap) marginal, and what is dropped is the same
     negative cross-category covariance already documented for the dart
-    split (docs/parity.md) — the old 8-call chain cost ~0.5 ms/day of
-    launch floors (device trace, while.240) for a diagnostic curve."""
+    split (docs/parity.md) — a sequential 8-call chain would serialize
+    sampler invocations for a diagnostic curve."""
     K_age = jnp.sum(K_g, axis=(1, 2, 3))                          # (A,)
     qp = jnp.sum(q_hat, axis=2)                                   # (A, P)
     counts = _binomial_split(key, K_age, qp)                      # (A, P)
@@ -1613,10 +1507,8 @@ def snapshot_outputs(cfg: EngineConfig, arrays: ModelArrays,
     """Day-0 snapshot before any events (the reference emits state
     before the first iterate, calc/simulation.py:194-270).
 
-    Jitted: run_days calls this eagerly once per run, and under a mesh
-    the eager shard_map islands cost ~8.7 s of per-op host compiles and
-    dispatch (mesh trace, 2026-08-21) — jit folds them into one cached
-    program."""
+    Jitted: run_days calls this once per run, and jit folds its ops
+    into one cached program."""
     V = cfg.nr_variants
     st = state.state.astype(I32)
     active = state.active

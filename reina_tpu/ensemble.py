@@ -3,19 +3,11 @@
 Replaces the reference's 8-process ``multiprocessing.Pool.map`` over
 1000 seeds (calc/simulation.py:349-385).
 
-Execution strategy (measured, tools/bench_ensemble.py on the v5e):
-single-chip seed sweeps run SEQUENTIALLY through the one compiled
-single-run program — at HUS scale ~6-7 ms/day/seed on the current
-engine (BENCH_MC.json holds the latest measured 1000-seed 364-day
-record; ~1.4-1.7k seeds/h/chip). The ``vmap``-batched program
-costs ~200 ms/day/seed at S=8 (12× worse: batching the engine's
-gather/scatter streams and the (N, groups) one-hot matmul operands
-multiplies the scalar-pipeline work and HBM-resident intermediates by
-S, and S=32 exhausts HBM outright), so vmap batching is NOT a win
-within one chip — it exists for mesh runs, where the 'seed' axis
-shards members across chips and each chip executes its own slice.
-Scaling across chips is otherwise process-per-chip (init_distributed,
-parallel/mesh.py) with each process running the sequential path.
+Execution strategy: by default seeds run SEQUENTIALLY through the one
+compiled single-run program. The ``vmap``-batched program runs a batch
+of seeds as one program; with a mesh, its 'seed' axis shards the batch
+across devices and each device executes its own slice. Scaling across
+hosts is process-per-host (init_distributed, parallel/mesh.py).
 """
 from __future__ import annotations
 
@@ -61,10 +53,9 @@ def run_ensemble(run: CompiledRun, seeds: List[int],
     across seeds).
 
     ``batch_size=1`` (the default) executes seeds sequentially through
-    the compiled single-run program — the fastest single-chip strategy
-    by a measured 12× (see module docstring). Larger batches vmap seeds
-    into one program; use them only with a mesh whose 'seed' axis
-    shards the batch across chips."""
+    the compiled single-run program. Larger batches vmap seeds into one
+    program; with a mesh, its 'seed' axis shards the batch across
+    devices."""
     results = []
     placement = None
     if mesh is not None:
@@ -88,20 +79,16 @@ def run_ensemble(run: CompiledRun, seeds: List[int],
             continue
         # pad a ragged final chunk by repeating the last seed: a smaller
         # batch axis would force a second full compile of the vmapped
-        # engine program (1-18 min on TPU; on CPU it burns one of the
-        # few big compiles before the known jaxlib segfault)
+        # engine program (on CPU it burns one of the few big compiles
+        # before the known jaxlib segfault)
         n_real = len(chunk)
         chunk = list(chunk) + [chunk[-1]] * (batch_size - n_real)
         keys = jnp.stack([jr.PRNGKey(s) for s in chunk])
         if placement is not None:
             keys = jax.device_put(keys, placement(keys))
-        # vmapped/mesh-sharded programs keep the XLA formulations of the
-        # fused ops: GSPMD can't partition a pallas_call, and the
-        # single-launch kernels only pay off in the sequential program
-        from dataclasses import replace
         st_b, cr_b, outs = _ensemble_scan(
-            replace(run.cfg, pallas=False), run.arrays, schedules,
-            run.init_state, run.init_carry, keys)
+            run.cfg, run.arrays, schedules, run.init_state, run.init_carry,
+            keys)
         for problem in np.asarray(cr_b.problem)[:n_real]:
             check_problems(int(problem))
         results.append(jax.tree.map(

@@ -2,8 +2,8 @@
 
 The reference integrates a 3-compartment ODE with scipy ``solve_ivp``
 on the host; here it is a jitted RK4 integrator under ``lax.scan`` so
-sanity-comparison sweeps (e.g. a grid over R0) run vmapped on the TPU
-next to the agent-based engine. The reference's driving variables
+sanity-comparison sweeps (e.g. a grid over R0) run vmapped on the
+device next to the agent-based engine. The reference's driving variables
 (``r0``, ``initial_infected``, ``infectious_days``) had rotted out of
 its defaults (calc/sir.py:24 vs variables.py); they are explicit
 arguments here.

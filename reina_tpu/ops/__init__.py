@@ -1,3 +1,3 @@
-"""Vectorized primitives backing the engine (XLA + Pallas)."""
+"""Vectorized primitives backing the engine."""
 
 from .clamped import clamped_counter_grants  # noqa: F401

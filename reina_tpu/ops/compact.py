@@ -2,34 +2,41 @@
 
 Packing the set positions of an (N,) mask into a fixed-capacity buffer
 is the classic XLA pattern ``zeros(K+1).at[slot].set(iota(N))`` — a
-scatter with an N-sized update stream, which on TPU runs through the
-scalar pipeline at ~12-14 ms per op at N≈1.7M (tools/profile_ops_sync.py).
-The equivalent here costs one cumsum plus log2(N) rounds of K-sized
-gathers (~20× cheaper): the s-th set position is the first index where
-the inclusive cumsum of the mask reaches s+1, found by bisection.
+scatter with an N-sized update stream. Here it costs one cumsum plus
+log2(N) rounds of K-sized gathers: the s-th set position is the first
+index where the inclusive cumsum of the mask reaches s+1, found by
+bisection.
 """
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
 
-from .fusedmap import fused_concat_prefix
 from .random import searchsorted_compact
 
 I32 = jnp.int32
 
 
-def compact_indices(mask, capacity: int, head: int = 1 << 9,
-                    force: str | None = None):
+def concat_cumsum(weights, codes, n_seg: int):
+    """Inclusive prefix sum over the concatenation
+    ``[where(codes == s, weights, 0) for s in range(n_seg)]`` — one
+    (n_seg * N,) cumsum whose segment s holds the running total of the
+    weights of code s, offset by the totals of the segments before it.
+    Returns (n_seg * N,) in ``weights``' dtype."""
+    zero = jnp.zeros((), weights.dtype)
+    return jnp.cumsum(jnp.concatenate(
+        [jnp.where(codes == s, weights, zero) for s in range(n_seg)]))
+
+
+def compact_indices(mask, capacity: int, head: int = 1 << 9):
     """Pack the indices of set positions of ``mask`` into a buffer.
 
     Args:
       mask: (N,) bool.
       capacity: static buffer size K.
       head: always-computed tier size; slots beyond it are filled under
-        ``lax.cond`` only when the set count exceeds ``head`` — each
-        bisection round costs ~7 ns per query on this TPU, so the
-        common small-count day pays only for the head.
+        ``lax.cond`` only when the set count exceeds ``head``, so the
+        common small-count day bisects only for the head.
 
     Returns:
       buf: (K,) int32 — the first K set indices in ascending order;
@@ -39,12 +46,8 @@ def compact_indices(mask, capacity: int, head: int = 1 << 9,
         flag overflow when count > K).
     """
     n = mask.shape[0]
-    # inclusive prefix count as ONE streaming kernel pass (exact: f32
-    # integers < 2^24; the XLA reduce-window pair cost ~0.3 ms/day at
-    # HUS scale in the device trace). Bisection over the same values is
-    # identical whichever dtype carries them.
-    cum = fused_concat_prefix(mask.astype(jnp.float32), None, 1,
-                              force=force, exact_int=True)
+    # inclusive prefix count (exact: f32 integers < 2^24)
+    cum = jnp.cumsum(mask.astype(jnp.float32))
     count = cum[-1].astype(I32)
 
     def part(lo_slot: int, n_slots: int):

@@ -1,11 +1,9 @@
 """While-loop-free random samplers with fixed rejection rounds.
 
 ``jax.random.gamma``/``binomial`` use rejection loops built on
-``lax.while_loop`` with data-dependent trip counts, which de-optimize
-scheduling of the surrounding program on this TPU toolchain (measured:
-one ``jr.gamma(N=1.7M)`` call inflates the surrounding program by
-~240 ms — tools/profile_chain.py). These samplers run a FIXED number of
-rejection rounds instead. Acceptance per round is high (≳86-99%), so
+``lax.while_loop`` with data-dependent trip counts. These samplers run
+a FIXED number of rejection rounds instead, so the surrounding program
+has a static schedule. Acceptance per round is high (≳86-99%), so
 the probability that any lane exhausts its rounds is negligible;
 exhausted lanes fall back to a clamped moment-matched value, a bias far
 below sampling noise.
@@ -30,7 +28,7 @@ def gamma_fixed(key, kappa: float, shape, rounds: int = 4):
     """Standard Gamma(kappa) for kappa > 1 via Marsaglia–Tsang squeeze
     with ``rounds`` rejection rounds (acceptance ≈ 96-99% per round;
     P(all 4 fail) ≤ 3e-6, falling back to the mean — bias far below
-    sampling noise; each scan round costs a fixed ~0.1 ms on this TPU).
+    sampling noise).
 
     Returns float32 array of ``shape``.
     """
@@ -51,8 +49,8 @@ def gamma_fixed(key, kappa: float, shape, rounds: int = 4):
 
     init = (jnp.full(shape, jnp.nan, F32), jnp.zeros(shape, bool))
     # fully unrolled: the body is pure elementwise, so the rounds fuse
-    # into one kernel instead of paying ~90 µs scan-iteration overhead
-    # per round (tools/trace_step.py); compile cost is ~25 eqns/round
+    # into one kernel instead of paying a scan iteration per round;
+    # compile cost is ~25 eqns/round
     (out, done), _ = lax.scan(body, init, jr.split(key, rounds),
                               unroll=rounds)
     # fallback: mean of the distribution (P(reach) < 1e-8 for rounds=8)
@@ -182,8 +180,7 @@ def searchsorted_fixed(sorted_arr, queries, side: str = "left",
 
     ``lo_init``/``hi_init`` restrict each query to a known bracket
     (e.g. an age-bucket range), cutting the unrolled step count to
-    log2(max_range) — every step is a gather op, the expensive unit on
-    this toolchain."""
+    log2(max_range) — every step is a gather op."""
     n = sorted_arr.shape[0]
     if n_steps is None:
         n_steps = (max_range if max_range is not None else n).bit_length()
@@ -203,16 +200,15 @@ def searchsorted_fixed(sorted_arr, queries, side: str = "left",
         return (lo, hi), None
 
     # partial unroll, but keep the while alive: rounds INSIDE a while
-    # cost ~29 µs (lo/hi state stays resident) vs ~58 µs as top-level
-    # fusions that re-read/write the query-state arrays (day-200 trace,
-    # 2026-08-19: 48 materialized rounds/day = 1.8 ms). The TPU backend
-    # FULLY UNROLLS a while with trip count 2, and a peeled scan
-    # remainder materializes too — so pick the largest unroll ≤ 7 with
-    # ≥ 3 trips, padding n_steps to a multiple (extra rounds are no-ops
-    # once lo == hi, just their gather cost; minimized by the search).
+    # keep the lo/hi state resident, where top-level rounds would
+    # re-read/write the query-state arrays. XLA may FULLY UNROLL a while
+    # with trip count 2, and a peeled scan remainder materializes too —
+    # so pick the largest unroll ≤ 7 with ≥ 3 trips, padding n_steps to
+    # a multiple (extra rounds are no-ops once lo == hi, just their
+    # gather cost; minimized by the search).
     if n_steps > 7:
-        # cost model: a while trip and a round cost about the same
-        # (~30 µs each) — minimize trips + padded rounds
+        # cost model: a while trip and a round cost about the same —
+        # minimize trips + padded rounds
         def cost(u):
             trips = max(3, -(-n_steps // u))
             return trips + trips * u, -u
@@ -228,8 +224,8 @@ def searchsorted_fixed(sorted_arr, queries, side: str = "left",
 def tiny_level1_block(n: int, max_sub: int = 104):
     """Smallest ``block`` with ``n % block == 0`` whose strided
     subsample ``arr[block-1::block]`` still has ≤ max_sub entries — the
-    level-1 table stays ≤~100 entries (gathers as vectorized selects,
-    ~free on this TPU, docs/performance.md) while minimizing the
+    level-1 table stays ≤~100 entries (gathers as vectorized selects)
+    while minimizing the
     log2(block) *gathered* level-2 rounds. Returns None when n has no
     such divisor (prime-ish n) or the saving would be < 4 rounds."""
     for k in range(max_sub, 15, -1):
@@ -259,12 +255,10 @@ def searchsorted_blocked(sorted_arr, queries, side: str = "left",
     slice, not a recomputation), so the bracket is exact even for
     float data.
 
-    Note: on the current toolchain this does NOT beat a plain
-    bracketed ``searchsorted_fixed`` — measured bisection cost is per
-    (round × query) at ~7 ns regardless of table size once the table
-    leaves the tiny-constant regime, so the level-1 rounds cost the
-    same as level-2 rounds (docs/performance.md). Kept as a library op
-    for backends where small-table gathers are genuinely cheaper.
+    The saving is the level-1 rounds' gathers, which read a ≤104-entry
+    table instead of the big array; whether that beats a plain
+    bracketed ``searchsorted_fixed`` depends on the backend's gather
+    cost for small tables.
 
     Requires ``sorted_arr.shape[0] % block == 0``.
     """
@@ -272,9 +266,7 @@ def searchsorted_blocked(sorted_arr, queries, side: str = "left",
     assert n % block == 0, (n, block)
     # materialize the subsample: without the barrier XLA fuses the
     # strided slice into the level-1 gathers, which then read the BIG
-    # array (a real ~58 µs gather per round at 4096 queries, day-200
-    # trace) instead of a ≤104-entry table that lowers to vectorized
-    # selects (~free)
+    # array instead of a ≤104-entry table
     cum_b = jax.lax.optimization_barrier(sorted_arr[block - 1::block])
     blk_lo = None if lo_init is None else lo_init // block
     blk_hi = None if hi_init is None else (hi_init + block - 1) // block

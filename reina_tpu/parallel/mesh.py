@@ -8,11 +8,11 @@ are device-mesh dimensions:
   * ``seed``  — embarrassingly parallel ensemble members (the reference's
                 pool.map axis) ≙ data parallel
   * ``agent`` — the population axis *within* one simulation, sharded
-                across chips ≙ the tensor/sequence-parallel axis; the
-                only cross-shard traffic is the (V, B) dart-count
-                reduction, the scalar capacity ledgers and the small
-                new-infection exchange — all riding ICI collectives that
-                XLA inserts from these sharding annotations.
+                across devices ≙ the tensor/sequence-parallel axis; the
+                cross-shard traffic (dart-count reductions, the capacity
+                ledgers' scans, the new-infection exchange) is made of
+                collectives that XLA inserts from these sharding
+                annotations.
 """
 from __future__ import annotations
 
@@ -27,19 +27,18 @@ def init_distributed(coordinator_address: Optional[str] = None,
                      num_processes: Optional[int] = None,
                      process_id: Optional[int] = None) -> int:
     """Initialize the multi-host (multi-process) runtime for meshes that
-    span hosts (SURVEY §5.8: DCN between hosts, ICI within).
+    span hosts.
 
-    Call once per process before any device access. On managed TPU pods
-    (GKE/Cloud TPU) jax discovers everything from the environment and
-    all arguments may be omitted; elsewhere pass the coordinator's
-    ``host:port`` plus this process's id and the world size, or set
-    ``REINA_COORDINATOR`` / ``REINA_NUM_PROCESSES`` / ``REINA_PROCESS_ID``.
+    Call once per process before any device access. Pass the
+    coordinator's ``host:port`` plus this process's id and the world
+    size, or set ``REINA_COORDINATOR`` / ``REINA_NUM_PROCESSES`` /
+    ``REINA_PROCESS_ID``.
 
     After initialization ``jax.devices()`` is the GLOBAL device list —
     pass it to :func:`make_mesh` and keep the ``seed`` (data-parallel)
-    axis as the slow, inter-host dimension so its rare collectives ride
-    DCN while the chatty ``agent``-axis reductions stay on ICI:
-    ``make_mesh(n_seed=n_hosts, n_agent=chips_per_host)``.
+    axis as the slow, inter-host dimension so its rare collectives
+    cross hosts while the chatty ``agent``-axis reductions stay within
+    one: ``make_mesh(n_seed=n_hosts, n_agent=devices_per_host)``.
 
     Single-process runs (no coordinator configured) are a no-op.
     Returns the number of participating processes.
@@ -48,10 +47,7 @@ def init_distributed(coordinator_address: Optional[str] = None,
 
     coordinator_address = coordinator_address or os.environ.get(
         "REINA_COORDINATOR")
-    managed_env = any(k in os.environ for k in (
-        "TPU_WORKER_HOSTNAMES", "MEGASCALE_COORDINATOR_ADDRESS",
-        "CLOUD_TPU_TASK_ID"))
-    if coordinator_address is None and not managed_env:
+    if coordinator_address is None:
         return 1
     if num_processes is None and os.environ.get("REINA_NUM_PROCESSES"):
         num_processes = int(os.environ["REINA_NUM_PROCESSES"])

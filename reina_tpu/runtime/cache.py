@@ -9,7 +9,7 @@ graphql_schema.py:263-290).
 Backends:
   * MemoryCache — in-process, thread-safe; the default, because unlike
     the reference's process-per-run design our workers are threads
-    sharing one TPU client (see runner.py).
+    sharing one device client (see runner.py).
   * ShmCache   — C++ shared-memory hash map via ctypes (cpp/shmcache),
     for multi-process deployments (e.g. several gunicorn-style workers
     on one host) without a Redis dependency.

@@ -3,7 +3,7 @@
 
 The reference spawns one OS process per simulation because its engine
 holds the GIL. Our engine's hot path runs inside XLA (which releases
-the GIL), and the TPU is owned by a single client — so workers are
+the GIL), and the device is owned by a single client — so workers are
 *threads* sharing the compiled program cache: a repeat run with the
 same shapes skips compilation entirely. The run-identity, dedup,
 streaming and admission-control semantics are preserved:
@@ -83,8 +83,8 @@ class SimulationThread(threading.Thread):
             # Refresh the liveness + partial-result keys while the
             # engine sits inside a long XLA compile and cannot publish:
             # the reference's 30 s TTL assumed a sub-30 s simulated day
-            # (simulation_thread.py:20,41); our TPU chunk compiles take
-            # ~49 s warm and minutes cold, which would let
+            # (simulation_thread.py:20,41); a cold compile of our day
+            # chunk takes minutes, which would let
             # ``<run>-finished`` expire (clients see "No simulation run
             # active" mid-run) and ``<run>-results`` expire (streamed
             # charts blank out between chunks).

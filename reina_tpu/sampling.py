@@ -8,7 +8,7 @@ Draws run through the ENGINE's own jax samplers — the severity chain
 exposure phase — exactly as the reference's ``context.sample`` draws
 through the live simulation code (main.pyx:2047-2101), so the explorer
 cannot drift from the step. The programs are tiny and pinned to the CPU
-backend so a serving process never waits on a TPU compile.
+backend so a serving process never waits on an accelerator compile.
 """
 from __future__ import annotations
 

@@ -45,9 +45,8 @@ def _resolve_variables(variable_store: Optional[dict] = None) -> Dict:
     return out
 
 
-# Serving-path build cache: build_run costs ~8 s at HUS scale
-# (population/schedule compilation + device transfers) and dominated
-# the warmed time-to-first-partial (docs/performance.md). Repeat runs
+# Serving-path build cache: build_run costs seconds of host work at HUS
+# scale (population/schedule compilation + device transfers). Repeat runs
 # of the same resolved-variable set — the common UI case of re-running
 # with a new random seed is a DIFFERENT set, but polling re-entries and
 # dedup'd runs are not — reuse the compiled run. The CompiledRun is

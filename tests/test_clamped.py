@@ -50,69 +50,6 @@ def test_scarcity_grants_exactly_available():
     assert g[17] and g[(17 + 9) % n] and not g[(17 + 10) % n]
 
 
-def test_streaming_kernel_matches_xla_path():
-    """The single-pass Pallas formulation (interpret mode on CPU) is
-    bit-identical to the reduce-window path AND to the sequential sweep
-    at a kernel-eligible size (n a multiple of 1024)."""
-    rng = np.random.default_rng(3)
-    n = 2048
-    for trial, offset in enumerate([0, 1, 777, n - 1,
-                                    int(rng.integers(0, n))]):
-        releases = rng.integers(0, 2, (n, 2)).astype(np.int32)
-        requests = rng.random((n, 2)) < 0.3
-        init = rng.integers(0, 6, 2).astype(np.int32)
-        got_g, got_b = clamped_counter_grants(
-            jnp.asarray(releases), jnp.asarray(requests),
-            jnp.asarray(init), jnp.int32(offset), force="interpret")
-        ref_g, ref_b = clamped_counter_grants(
-            jnp.asarray(releases), jnp.asarray(requests),
-            jnp.asarray(init), jnp.int32(offset), force="xla")
-        np.testing.assert_array_equal(np.asarray(got_g), np.asarray(ref_g),
-                                      err_msg=f"trial {trial}")
-        np.testing.assert_array_equal(np.asarray(got_b), np.asarray(ref_b))
-        for led in range(2):
-            want_g, want_b = sequential(releases[:, led], requests[:, led],
-                                        int(init[led]), offset)
-            np.testing.assert_array_equal(
-                np.asarray(got_g)[:, led], want_g,
-                err_msg=f"trial {trial} led {led}")
-            assert int(np.asarray(got_b)[led]) == want_b, (trial, led)
-
-
-def test_streaming_kernel_multiblock_carries():
-    """G > 1 grid: the cross-block SMEM carries (running sum / masked
-    max / max) — the riskiest kernel logic and the one exercised at HUS
-    scale (G=27) — must match the reduce-window path bit-for-bit.
-    n = 131072 gives R = 1024, blk = 512, G = 2; offsets land mid-block
-    in both grid steps."""
-    rng = np.random.default_rng(11)
-    n = 131072
-    for trial, offset in enumerate([12345, 70000, 65536, n - 1]):
-        releases = rng.integers(0, 2, (n, 2)).astype(np.int32)
-        requests = rng.random((n, 2)) < 0.3
-        init = rng.integers(0, 6, 2).astype(np.int32)
-        got_g, got_b = clamped_counter_grants(
-            jnp.asarray(releases), jnp.asarray(requests),
-            jnp.asarray(init), jnp.int32(offset), force="interpret")
-        ref_g, ref_b = clamped_counter_grants(
-            jnp.asarray(releases), jnp.asarray(requests),
-            jnp.asarray(init), jnp.int32(offset), force="xla")
-        np.testing.assert_array_equal(np.asarray(got_g), np.asarray(ref_g),
-                                      err_msg=f"trial {trial}")
-        np.testing.assert_array_equal(np.asarray(got_b), np.asarray(ref_b))
-
-
-def test_forced_pallas_rejects_ineligible_size():
-    """force='pallas' on an n where blk would not divide R must fail
-    loudly (silent garbage tail rows otherwise — ADVICE r2)."""
-    import pytest
-    n = 128 * 9  # n % 128 == 0 but (n/128) % 8 != 0
-    with pytest.raises(AssertionError):
-        clamped_counter_grants(
-            jnp.zeros((n,), jnp.int32), jnp.zeros((n,), bool),
-            jnp.int32(1), jnp.int32(0), force="interpret")
-
-
 def test_two_ledger_batch_matches_sequential():
     """The (N, L) multi-ledger path (beds + ICU ride one call in the
     engine) matches per-ledger sequential sweeps."""
@@ -132,32 +69,3 @@ def test_two_ledger_batch_matches_sequential():
             np.testing.assert_array_equal(np.asarray(got_g)[:, led], want_g,
                                           err_msg=f"trial {trial} led {led}")
             assert int(np.asarray(got_b)[led]) == want_b, (trial, led)
-
-
-def test_sharded_grants_match_unsharded(monkeypatch):
-    """The mesh-sharded ledger path (per-shard streaming kernels + the
-    all-gathered exact-int carry fold, ops/clamped._grants_sharded)
-    returns (granted, final) bit-identical to the unsharded scan, for
-    offsets inside every shard and at the boundaries."""
-    import jax
-    from jax.sharding import Mesh
-
-    monkeypatch.setenv("REINA_SHARD_INTERPRET", "1")
-    from reina_tpu.ops.fusedmap import shard_pallas
-
-    mesh = Mesh(np.array(jax.devices()[:4]).reshape(2, 2),
-                ("seed", "agent"))
-    n = 8192
-    rng = np.random.default_rng(5)
-    rel = jnp.asarray(rng.integers(0, 2, (n, 2)).astype(np.int32))
-    req = jnp.asarray(rng.integers(0, 2, (n, 2)).astype(bool))
-    init = jnp.asarray(np.array([4, 1], np.int32))
-    for off_v in [0, 1, n // 4, n // 2 + 3, n - 1]:
-        off = jnp.int32(off_v)
-        g_ref, f_ref = clamped_counter_grants(rel, req, init, off)
-        with shard_pallas(mesh):
-            g_s, f_s = jax.jit(
-                lambda r, q, o: clamped_counter_grants(r, q, init, o))(
-                rel, req, off)
-        np.testing.assert_array_equal(np.asarray(g_ref), np.asarray(g_s))
-        np.testing.assert_array_equal(np.asarray(f_ref), np.asarray(f_s))

@@ -1,7 +1,6 @@
 """Multi-host (multi-process) smoke test: two OS processes, a
 coordinator, and an agent-axis mesh that SPANS the processes — the
-CPU stand-in for SURVEY §5.8's "DCN between hosts, ICI within"
-topology (reference scale-out: one OS process per ensemble member,
+CPU stand-in for a mesh whose agent axis crosses hosts (reference scale-out: one OS process per ensemble member,
 calc/simulation.py:376-377).
 
 Each child process forces the CPU backend with exactly ONE local

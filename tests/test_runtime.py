@@ -91,7 +91,7 @@ def test_heartbeat_outlives_ttl(monkeypatch):
     is stuck in a long XLA compile and cannot publish — otherwise the
     30 s key TTL expires mid-compile and clients see "No simulation run
     active" (reference simulation_thread.py:20,41 assumed sub-TTL
-    days; our TPU chunk compiles exceed it)."""
+    days; a cold compile of our day chunk exceeds it)."""
     monkeypatch.setattr(runner, "HEARTBEAT_S", 0.05)
     gate = threading.Event()
 

@@ -85,7 +85,7 @@ def test_infectiousness_curve(variables):
 def test_webui_served():
     from reina_tpu.webui import app_html
     html = app_html()
-    assert b"REINA-TPU" in html and b"/graphql" in html
+    assert b"<h1>REINA</h1>" in html and b"/graphql" in html
 
 
 def test_webui_static_integrity():

@@ -5,7 +5,7 @@ populations never see more daily infections than the head, so
 ``compact_part`` tail tiers, ``slot_pipeline`` parts >= 1, the geometric
 tail scatters and the per-tier key schedule (core/step.py slot
 pipeline) — the code every real HUS epidemic-peak day runs — were
-exercised only by the TPU bench. A tiny head forces multiple tiers and
+exercised only by full-size runs. A tiny head forces multiple tiers and
 tail scatters on every epidemic day. Reference behavior anchored at
 main.pyx:209-245 (person_infect runs per new infection regardless of
 the day's count; the tiering must be invisible).

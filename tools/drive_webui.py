@@ -1,6 +1,6 @@
 """Web-UI drive server: the REAL GraphQL server + web UI with the
 engine swapped for a fast fake, so a browser (or scripted client) can
-exercise run→poll→chart, zoom/pan/reset and PNG export without a TPU
+exercise run→poll→chart, zoom/pan/reset and PNG export without an accelerator
 or a multi-minute compile.
 
 The fake streams three partial frames on the reference cadence and

@@ -4,7 +4,6 @@ Prints bucket fill statistics (max fill = how close the run comes to
 the reference's MAX_INFECTEES=64 cap), the drained-queue proxy
 (ct_cases) and per-day new-infection counts at every 28-day chunk
 boundary, to size the tracing tiers from data instead of guesswork.
-Uses bench-identical shapes so the persistent compile cache serves it.
 """
 import sys, os
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))

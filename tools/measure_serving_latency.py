@@ -4,13 +4,14 @@ Starts the production server in-process (with the serving-program
 warm-up), POSTs runSimulation over HTTP, and polls simulationResults at
 the client's 0.5 s cadence, recording when the phase leaves
 "compiling", when the first non-empty partial arrives, and when the run
-finishes. This is the serving-latency number round-4's verdict asked to
-document (weak #7).
+finishes. The JSON line it prints names the device and, on a GPU, the
+card and its power limit.
 
 Usage: python tools/measure_serving_latency.py [--days N] [--no-warmup]
 """
 import json
 import os
+import subprocess
 import sys
 import time
 import urllib.request
@@ -77,8 +78,18 @@ def main() -> None:
             if res["finished"]:
                 finished = now
                 break
+        import jax
+        dev = jax.devices()[0]
+        card = (subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.splitlines()[0]
+            if dev.platform == "gpu" else None)
         print(json.dumps({
             "metric": "serving_time_to_first_partial_s",
+            "device": {"platform": dev.platform, "kind": dev.device_kind,
+                       "count": len(jax.devices())},
+            "card": card,
             "days": days,
             "warmed_up": warmup,
             "first_non_compiling_phase_s": round(first_running or -1, 2),
